@@ -5,8 +5,8 @@
 # The core set covers the foundational math/solver/front-end kernels at
 # tiny shapes: lie groups, robust stats, camera models, IMU
 # preintegration, geometry solvers (triangulation/Sim3/PnP/two-view),
-# GN pose solve, Schur BA, YAML config, logging, the Pallas matcher
-# (interpret mode), rectification.
+# GN pose solve, Schur BA, YAML config, logging, the gated matcher
+# against its NumPy brute force, rectification.
 #
 # Wider gates:
 #   python -m pytest tests/ -q -m "not slow"   # all fast tests (~9 min)
@@ -17,7 +17,7 @@ python -m pytest -q \
     tests/test_lie.py tests/test_robust.py tests/test_camera.py \
     tests/test_imu.py tests/test_geometry_solvers.py tests/test_pose_solver.py \
     tests/test_ba.py tests/test_ba_compaction.py tests/test_yaml_full.py \
-    tests/test_log.py tests/test_pallas_hamming.py tests/test_rectify.py \
+    tests/test_log.py tests/test_matching_gated.py tests/test_rectify.py \
     tests/test_covisibility.py ${PYTEST_ARGS}
-python -c "import ast; ast.parse(open('bench.py').read()); ast.parse(open('__graft_entry__.py').read())"
+python -c "import ast; [ast.parse(open(f).read()) for f in ('bench.py', '__graft_entry__.py', 'chip_smoke.py')]"
 echo "check.sh: OK"

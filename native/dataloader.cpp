@@ -1,6 +1,6 @@
 // Native asynchronous stereo/IMU data loader for pli_slam_tpu.
 //
-// TPU-native replacement for the reference's blocking ingest path: the
+// JAX replacement for the reference's blocking ingest path: the
 // CLI drivers read PNGs synchronously on the tracking thread
 // (reference: Examples/Stereo-Inertial/stereo_inertial_euroc.cc:124-151,
 // 203-249 — LoadImages/LoadIMU + per-frame cv::imread), stalling the

@@ -1,9 +1,9 @@
-"""PLI-SLAM-TPU — a TPU-native stereo visual-inertial point+line SLAM framework.
+"""PLI-SLAM in JAX — a stereo visual-inertial point+line SLAM framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of PLI-SLAM
+A from-scratch JAX/XLA re-design of the capabilities of PLI-SLAM
 (reference: VealFang/PLI-SLAM, a C++11 ORB-SLAM3 + PL-SLAM derivative):
 
-- batched ORB point + line-segment extraction as XLA/Pallas programs
+- batched ORB point + line-segment extraction as XLA programs
   (reference: src/ORBextractor.cc, src/LineExtractor.cc);
 - binary-descriptor (Hamming) matching as popcount-matmul kernels
   (reference: src/ORBmatcher.cc, src/LineMatcher.cpp);

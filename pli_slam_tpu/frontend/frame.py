@@ -1,6 +1,6 @@
 """Per-frame front-end: one jitted program builds the full working set.
 
-TPU-native replacement for the reference's `Frame` constructor pipeline
+JAX replacement for the reference's `Frame` constructor pipeline
 (reference: src/Frame.cc:98-230 — 4 extraction threads, undistortion,
 `ComputeStereoMatches` :976, `ComputeStereoMatches_Lines` :1156,
 `AssignFeaturesToGrid` :451). Here the whole thing — both pyramids,
@@ -42,10 +42,9 @@ class FrameData:
 
 def build_frame(cam: Camera, cfg: SlamConfig, img_l: jax.Array, img_r: jax.Array) -> FrameData:
     # L/R extraction stays as two sequential sub-graphs inside the one
-    # jitted program: a [2,H,W]-vmapped variant was measured SLOWER on
-    # the TPU (ORB 8.6 -> 13.8 ms, lines 10.2 -> 25.8 ms for the pair) —
-    # XLA lowers the batched keypoint gathers / top-k poorly, while the
-    # sequential graphs pipeline fine
+    # jitted program rather than one [2,H,W]-vmapped graph: XLA lowered
+    # the batched keypoint gathers / top-k poorly on an earlier
+    # accelerator (a design choice not yet measured on the card)
     fl = orb.extract(img_l, cfg.orb)
     fr = orb.extract(img_r, cfg.orb)
     u_r, sok = stereo.match_stereo(

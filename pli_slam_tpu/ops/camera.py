@@ -1,6 +1,6 @@
 """Camera models: Pinhole and Kannala-Brandt-8 fisheye, as batched pure functions.
 
-TPU-native replacement for the reference's `GeometricCamera` virtual
+JAX replacement for the reference's `GeometricCamera` virtual
 interface (reference: include/CameraModels/GeometricCamera.h:37-102,
 src/CameraModels/{Pinhole,KannalaBrandt8}.cpp). Instead of virtual
 dispatch over heap objects, a camera is a small pytree of parameters and
@@ -127,7 +127,7 @@ def project_jacobian(cam: Camera, xyz: jax.Array) -> jax.Array:
         row0 = jnp.stack([cam.fx * inv_z, zeros, -cam.fx * x * inv_z2], axis=-1)
         row1 = jnp.stack([zeros, cam.fy * inv_z, -cam.fy * y * inv_z2], axis=-1)
         return jnp.stack([row0, row1], axis=-2)
-    # KB8: autodiff the projection (runs on VPU, negligible vs matching cost)
+    # KB8: autodiff the projection (elementwise, negligible vs matching cost)
     flat = xyz.reshape(-1, 3)
     J = jax.vmap(jax.jacfwd(lambda p: project(cam, p)))(flat)
     return J.reshape(xyz.shape[:-1] + (2, 3))

@@ -1,6 +1,6 @@
 """FAST-9/16 corner detection as whole-image batched integer ops.
 
-TPU-native replacement for the reference's per-pixel OpenCV
+JAX replacement for the reference's per-pixel OpenCV
 `FAST(...)` calls inside `ORBextractor::ComputeKeyPointsOctTree`
 (reference: src/ORBextractor.cc:763-860). Instead of scalar loops the
 whole image is tested at once: the 16-pixel Bresenham ring is

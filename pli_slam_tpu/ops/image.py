@@ -1,6 +1,6 @@
 """Image ops: Gaussian blur, bilinear resize, pyramids, gradients.
 
-TPU-native replacement for the reference's OpenCV usage inside
+JAX replacement for the reference's OpenCV usage inside
 `ORBextractor::ComputePyramid` (reference: src/ORBextractor.cc:1152 —
 cv::resize + copyMakeBorder) and the pre-descriptor GaussianBlur
 (reference: src/ORBextractor.cc:1105). Everything is expressed as
@@ -26,11 +26,11 @@ def gaussian_kernel1d(sigma: float, radius: int) -> jax.Array:
 
 
 def _sep_filter(img: jax.Array, taps: jax.Array, axis: int) -> jax.Array:
-    """1-D filter along `axis` via shifted adds (VPU-friendly).
+    """1-D filter along `axis` via shifted adds.
 
-    XLA lowers single-channel 2-D convs poorly on TPU (the MXU wants many
-    channels); a k-tap separable filter as k rolls + fused multiply-adds
-    is purely elementwise and runs at HBM bandwidth instead.
+    A k-tap separable filter as k rolls + fused multiply-adds is purely
+    elementwise, so XLA fuses it instead of lowering a single-channel
+    2-D conv (a design choice not yet measured on the card).
     Edge handling approximates replicate-padding (roll wraps, but the
     border pixels involved are masked out by every consumer).
     """
@@ -94,7 +94,7 @@ def build_pyramid(img: jax.Array, n_levels: int, scale_factor: float) -> list[ja
 
 def sobel_gradients(img: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Sobel gx, gy as separable shifted adds (Sobel = smooth [1,2,1] x diff
-    [-1,0,1]); single-channel 2-D convs are slow on TPU. Accepts [..., H, W]."""
+    [-1,0,1]) instead of single-channel 2-D convs. Accepts [..., H, W]."""
     smooth = jnp.array([1.0, 2.0, 1.0], jnp.float32)
     diff = jnp.array([-1.0, 0.0, 1.0], jnp.float32)
     gx = _sep_filter(_sep_filter(img, smooth, -2), diff, -1)

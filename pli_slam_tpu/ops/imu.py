@@ -1,6 +1,6 @@
 """IMU preintegration on the SO(3) manifold as a `lax.scan`.
 
-TPU-native replacement for `IMU::Preintegrated` (reference:
+JAX replacement for `IMU::Preintegrated` (reference:
 src/ImuTypes.cc — `IntegrateNewMeasurement` :255-310 with its 9x9 A /
 9x6 B covariance propagation and bias Jacobians JRg/JVg/JVa/JPg/JPa,
 `Reintegrate` :246, bias-corrected getters `GetDeltaRotation/

@@ -1,6 +1,6 @@
 """SO(3) / SE(3) / Sim(3) Lie-group operations, vmap/jit friendly.
 
-TPU-native replacement for the reference's scattered SE(3) math:
+JAX replacement for the reference's scattered SE(3) math:
 - `expmap_se3` / `logmap_se3` / `inverse_se3` (reference: include/Auxiliar.h:49-88)
 - SO3 Exp/Log/right-Jacobian (reference: include/ImuTypes.h:269-279,
   src/ImuTypes.cc `NormalizeRotation`, `RightJacobianSO3`)
@@ -22,8 +22,8 @@ import jax.numpy as jnp
 _EPS = 1e-6
 
 # All Lie-group matrices are 3x3/4x4: FLOPs are negligible but precision is
-# not — on TPU the default matmul precision is bfloat16, which destroys
-# rotation orthogonality. Force full float32 MXU passes here.
+# not — an f32 dot with no precision set may run in TF32 on the GPU (10-bit
+# mantissa), which destroys rotation orthogonality. Force full float32.
 _HI = jax.lax.Precision.HIGHEST
 _mm = partial(jnp.matmul, precision=_HI)
 _einsum = partial(jnp.einsum, precision=_HI)

@@ -1,6 +1,6 @@
 """Line-segment detection and LBD-style binary description, fully batched.
 
-TPU-native replacement for the reference's vendored `line_descriptor`
+JAX replacement for the reference's vendored `line_descriptor`
 fork — `LSDDetectorC::detect` (reference:
 Thirdparty/line_descriptor/src/LSDDetector_custom.cpp:218-325) and the
 LBD `BinaryDescriptor::compute` (reference:
@@ -86,8 +86,8 @@ def _edge_map(img: jax.Array, grad_threshold: float):
     mag = jnp.sqrt(gx * gx + gy * gy)
     # quantize gradient direction into 4 sectors; compare against both
     # neighbors along the gradient. Selection is a one-hot sum over the
-    # 4 shifted maps — pure elementwise (a take_along_axis gather here
-    # cost ~1.4 ms/image on TPU; this is ~50 us).
+    # 4 shifted maps — pure elementwise instead of a take_along_axis
+    # gather (a design choice not yet measured on the card).
     ang = jnp.arctan2(gy, gx)  # [-pi, pi]
     sector = jnp.round(ang / (jnp.pi / 4.0)).astype(jnp.int32) % 4  # 0:E,1:NE,2:N,3:NW
     offs = [(0, 1), (1, 1), (1, 0), (1, -1)]  # (dy, dx) per sector
@@ -116,8 +116,9 @@ def _hough_vote(edge, gx, gy, mag, cfg: LineConfig, h: int, w: int):
     diag = math.hypot(h, w)
     R = int(2 * diag / cfg.rho_res) + 3
     # voter compaction: strongest edge pixel per small block instead of a
-    # global top-k (top_k over H*W was ~1.5 ms; the block-max reshape is
-    # ~50 us and spreads voters spatially, which Hough prefers anyway)
+    # global top-k over H*W (the block-max reshape is cheaper, not yet
+    # measured on the card, and spreads voters spatially, which Hough
+    # prefers anyway)
     by, bx = 2, 2
     hp = h // by * by
     wp = w // bx * bx
@@ -130,8 +131,7 @@ def _hough_vote(edge, gx, gy, mag, cfg: LineConfig, h: int, w: int):
     cy = jax.lax.broadcasted_iota(jnp.int32, arg.shape, 0) * by + arg // bx
     cx = jax.lax.broadcasted_iota(jnp.int32, arg.shape, 1) * bx + arg % bx
     bidx = (cy * w + cx).reshape(-1)
-    # then a (now 4x smaller) top-k bounds the scatter volume — the
-    # scatter-add is the expensive part of Hough on TPU
+    # then a (now 4x smaller) top-k bounds the scatter-add volume
     n_voters = min(cfg.n_voters, bweight.shape[0])
     weight, sel = jax.lax.top_k(bweight, n_voters)
     flat_idx = bidx[sel]

@@ -1,6 +1,6 @@
 """ORB feature extraction: pyramid FAST + IC-angle + steered BRIEF, fully batched.
 
-TPU-native replacement for `ORBextractor` (reference:
+JAX replacement for `ORBextractor` (reference:
 src/ORBextractor.cc — `operator()` :1068, `ComputePyramid` :1152,
 `ComputeKeyPointsOctTree` :763, `DistributeOctTree` :537, `IC_Angle`
 :75, `computeOrbDescriptor` :115). Design inversions:
@@ -8,14 +8,14 @@ src/ORBextractor.cc — `operator()` :1068, `ComputePyramid` :1152,
 - the quadtree feature distribution becomes grid-cell top-k followed by
   a per-level global top-K (tile-local selection, same uniformity goal,
   no sequential tree);
-- IC-angle moments are whole-image convolutions (MXU) gathered at
+- IC-angle moments are whole-image separable filters gathered at
   keypoint sites instead of per-keypoint patch loops;
 - the descriptor pattern is a seeded Gaussian BRIEF-256 pair set
   (original pattern, NOT the OpenCV learned table) — self-consistent
   within this framework, which builds its own vocabulary;
 - descriptors are produced both bit-packed (`[N, 8] uint32`) and as
-  ±1 `int8 [N, 256]` so Hamming matching runs as an int8 matmul on the
-  MXU (hamming = (256 - dot)/2).
+  ±1 `int8 [N, 256]` so Hamming matching runs as an int8 matmul
+  (hamming = (256 - dot)/2).
 
 Outputs are fixed-capacity padded arrays with a validity mask.
 """
@@ -47,10 +47,10 @@ def brief_pattern(seed: int = 1234, n_bits: int = 256, sigma: float = 31.0 / 5.0
 _PATTERN = brief_pattern()
 
 # Pool-based BRIEF: the classic pattern needs 2*n_bits random image
-# gathers per keypoint — the single most expensive op in extraction on
-# TPU (random gathers don't vectorize). Instead gather a POOL of
+# gathers per keypoint (random gathers vectorize poorly; a design choice
+# not yet measured on the card). Instead gather a POOL of
 # `_POOL_N` rotated sample points once per keypoint and realize the 256
-# comparison pairs as two one-hot [256, pool] matmuls (MXU) over the
+# comparison pairs as two one-hot [256, pool] matmuls over the
 # gathered values: 4x fewer gathers, identical steering math. Pairs are
 # sampled so both endpoints are distinct and pair displacement keeps the
 # BRIEF Gaussian statistics.
@@ -113,8 +113,7 @@ def _ic_angle_maps(img: jax.Array) -> tuple[jax.Array, jax.Array]:
 
     Square (not circular) support makes the kernels rank-1 separable:
     m10 = (1_y * img) ⊛ x,  m01 = (y ⊛ img) * 1_x — four 31-tap 1-D
-    shifted-add passes instead of one 961-tap 2-D conv (the 2-D conv is
-    ~15x slower on TPU because single-channel convs can't feed the MXU).
+    shifted-add passes instead of one 961-tap single-channel 2-D conv.
     The slight anisotropy vs ORB's circular patch is irrelevant here:
     descriptors and vocabulary are self-consistent within this framework.
     """
@@ -135,8 +134,9 @@ def _cell_topk_candidates(score: jax.Array, cell: int, k_cell: int):
     """Per-cell top-k over a zero-padded score map [..., H, W] -> flat
     (scores, ys, xs), each [..., nc*k].
 
-    k_cell is small (<=8), so iterative argmax+mask (k_cell VPU passes)
-    beats `lax.top_k`'s per-row sort on TPU by a wide margin.
+    k_cell is small (<=8), so iterative argmax+mask (k_cell elementwise
+    passes) replaces `lax.top_k`'s per-row sort (a design choice not yet
+    measured on the card).
     """
     h, w = score.shape[-2:]
     lead = score.shape[:-2]

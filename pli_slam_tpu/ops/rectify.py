@@ -1,6 +1,6 @@
 """Stereo rectification / undistortion at image ingest.
 
-TPU-native replacement for the reference's cv::initUndistortRectifyMap +
+JAX replacement for the reference's cv::initUndistortRectifyMap +
 cv::remap pipeline (reference: src/Tracking.cc:144-258 builds M1l/M2l,
 M1r/M2r from the LEFT./RIGHT. K/D/R/P YAML blocks,
 Examples/Stereo-Inertial/Config/EuRoC.yaml:55-104; the CLI driver remaps

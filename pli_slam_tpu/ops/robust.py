@@ -7,7 +7,7 @@ Reference behavior replaced:
   used by `removeOutliers` src/Optimizer.cc:1261)
 - g2o Huber kernels (reference: Thirdparty/g2o robust_kernel_impl)
 
-All functions support masked, padded inputs (the TPU data model) — pass a
+All functions support masked, padded inputs (the fixed-shape data model) — pass a
 boolean `mask` and padding entries are excluded from statistics.
 """
 

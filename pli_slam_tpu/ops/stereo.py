@@ -1,6 +1,6 @@
 """Rectified stereo point matching with sub-pixel SAD refinement.
 
-TPU-native replacement for `Frame::ComputeStereoMatches` (reference:
+JAX replacement for `Frame::ComputeStereoMatches` (reference:
 src/Frame.cc:976-1154): the reference row-buckets right keypoints, does
 descriptor search per left keypoint, then slides an 11x11 SAD window
 for sub-pixel disparity. Here the candidate search is one gated Hamming
@@ -25,7 +25,7 @@ def _gather_patch_rows(img: jax.Array, cx: jax.Array, cy: jax.Array, half_h: int
 
     vmapped dynamic_slice lowers to a gather with contiguous
     (rows x cols) slice sizes — one fetch per patch instead of one per
-    pixel, which is the difference between ~ms and ~100ms on TPU.
+    pixel.
     """
     h, w = img.shape
     ph, pw = 2 * half_h + 1, 2 * half_w + 1

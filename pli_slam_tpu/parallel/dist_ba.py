@@ -2,7 +2,7 @@
 
 The reference has no distributed computing at all (SURVEY.md §2.3); its
 LocalBundleAdjustment is a single-threaded g2o solve over a shared-memory
-heap. Here the BA problem is partitioned the TPU-native way:
+heap. Here the BA problem is partitioned the dense-array way:
 
 - LANDMARKS (and their observations) are sharded across the mesh axis —
   the huge, embarrassingly-parallel side of the problem;

@@ -1,6 +1,6 @@
 """Windowed bundle adjustment with Schur-complement reduction, fully batched.
 
-TPU-native replacement for the reference's g2o-based local BA
+JAX replacement for the reference's g2o-based local BA
 (reference: src/Optimizer.cc — `LocalBundleAdjustment` :1864,
 `BundleAdjustment` :63, Schur marginalization `Marginalize` :5125) and
 — improving on the reference, whose local BA is points-only — line
@@ -20,9 +20,8 @@ freedom is fixed by masking rows/cols of fixed poses.
 Assembly is SCATTER-FREE: observations are argsorted by landmark id
 ONCE per solve (`ObsIndex`); per-iteration segment reductions are then
 a gather of each landmark's <=`wcap` observation blocks + a masked sum,
-and the per-pose placement of the Hpl blocks is a tiny one-hot einsum.
-(TPU scatter-adds serialized the previous implementation at ~30 ms per
-iteration; this form runs in well under a millisecond.) The pose-side
+and the per-pose placement of the Hpl blocks is a tiny one-hot einsum
+(no scatter-adds, which serialize on some backends). The pose-side
 accumulation exploits the pose-major observation layout (see BAProblem)
 as a reshape-sum. The same assembly generalizes to the distributed
 version (parallel/dist_ba.py) where landmark blocks are sharded and S
@@ -338,7 +337,7 @@ def assemble_visual(cam, prob: BAProblem, idx_p: ObsIndex, idx_l: ObsIndex,
         0.0,
     )
 
-    # Schur subtraction Wb Hll^-1 Wb^T as ONE flat MXU matmul per family:
+    # Schur subtraction Wb Hll^-1 Wb^T as ONE flat matmul per family:
     # A = Wb viewed [C, 6W, d]; B = A @ Hll^-1 (tiny batched matmul);
     # then contract (C, d) at once — einsum "iac,ibc->ab" is a single
     # dot_general. (The previous 3-operand einsum form lowered ~30x
@@ -370,7 +369,7 @@ def assemble_visual(cam, prob: BAProblem, idx_p: ObsIndex, idx_l: ObsIndex,
 
 def _inv3x3(m: jax.Array) -> jax.Array:
     """Closed-form batched 3x3 inverse (adjugate/determinant) — pure
-    elementwise, much faster on TPU than batched LU."""
+    elementwise, no batched LU."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
@@ -403,8 +402,8 @@ def _inv_spd_equilibrated(m: jax.Array, invfn) -> jax.Array:
 
 def _inv6x6_spd(m: jax.Array) -> jax.Array:
     """Batched 6x6 SPD inverse via 3x3 block Schur complement — all
-    elementwise + tiny batched matmuls; avoids the LU custom call that
-    dominated BA iteration time on TPU."""
+    elementwise + tiny batched matmuls; avoids a batched LU custom
+    call."""
     A = m[..., :3, :3]
     B = m[..., :3, 3:]
     Dm = m[..., 3:, 3:]

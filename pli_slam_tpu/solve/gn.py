@@ -1,6 +1,6 @@
 """Frame-pose Gauss-Newton solver over point + line residuals.
 
-TPU-native replacement for the reference's hand-rolled GN pose pipeline
+JAX replacement for the reference's hand-rolled GN pose pipeline
 (reference: src/Optimizer.cc — `PoseOptimizationWithLine` :1086-1259,
 `optimizeFunctions` :8719-8877, `gaussNewtonOptimization` :8569,
 `removeOutliers` :1261-1395) and the g2o `PoseOptimization` :770.

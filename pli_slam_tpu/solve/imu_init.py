@@ -1,6 +1,6 @@
 """Joint visual-inertial initialization (the real 3-stage IMU init).
 
-TPU-native replacement for `Optimizer::InertialOptimization` (reference:
+JAX replacement for `Optimizer::InertialOptimization` (reference:
 src/Optimizer.cc:5241-5755 — g2o graph over VertexGDir (2-dof gravity
 direction), VertexScale, shared VertexGyroBias/VertexAccBias with
 priorG/priorA priors, and per-keyframe VertexVelocity, poses fixed,

@@ -1,6 +1,6 @@
 """Visual-inertial state estimation: inertial frame-pose solve and IMU init.
 
-TPU-native replacement for the reference's inertial optimizers
+JAX replacement for the reference's inertial optimizers
 (reference: src/Optimizer.cc — `PoseInertialOptimizationLastKeyFrame`
 :7425, `PoseInertialOptimizationLastFrame` :7820, `InertialOptimization`
 overloads :5241-5755) built on the custom g2o types (VertexPose/

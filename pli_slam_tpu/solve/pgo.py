@@ -1,6 +1,6 @@
 """Pose-graph optimization (Sim3 / SE3), dense and batched.
 
-TPU-native replacement for the reference's essential-graph optimizers
+JAX replacement for the reference's essential-graph optimizers
 (reference: src/Optimizer.cc — `OptimizeEssentialGraph` 7-DoF :2437,
 `OptimizeEssentialGraph6DoF` :2755, `OptimizeEssentialGraph4DoF`
 :8247) built on g2o's sparse Sim3 machinery
@@ -8,8 +8,8 @@ TPU-native replacement for the reference's essential-graph optimizers
 
 Design inversion: the reference assembles a sparse Hessian and runs a
 sparse Cholesky; at SLAM scales (K <= ~1000 keyframes, 7K <= 7000
-unknowns) a DENSE [7K, 7K] system is a few hundred MB-FLOPs — pennies
-on an MXU and far friendlier than sparse triangular solves. Edge
+unknowns) a DENSE [7K, 7K] system is a few hundred MB-FLOPs — cheap
+on a matrix unit and far friendlier than sparse triangular solves. Edge
 residuals r = log(S_meas^-1 S_j S_i^-1) and their Jacobians come from
 `jax.jacfwd` vmapped over edges (each edge is a tiny 7->7 map).
 

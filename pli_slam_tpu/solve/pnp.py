@@ -1,6 +1,6 @@
 """Batched P3P/PnP RANSAC for relocalization.
 
-TPU-native replacement for `MLPnPsolver` (reference: src/MLPnPsolver.cpp
+JAX replacement for `MLPnPsolver` (reference: src/MLPnPsolver.cpp
 — ML-PnP inside an early-exit RANSAC `iterate` :70, consumed by
 Tracking::Relocalization src/Tracking.cc:4223) and the vestigial EPnP
 (src/PnPsolver.cc). The sequential RANSAC becomes a fixed hypothesis

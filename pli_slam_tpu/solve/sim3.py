@@ -1,6 +1,6 @@
 """Closed-form Sim3/SE3 from 3D-3D correspondences + batched RANSAC.
 
-TPU-native replacement for `Sim3Solver` (reference: src/Sim3Solver.cc —
+JAX replacement for `Sim3Solver` (reference: src/Sim3Solver.cc —
 Horn's closed form `ComputeSim3` :316 inside an early-exit RANSAC
 `iterate` :152). The sequential RANSAC becomes a fixed batch of
 hypotheses evaluated in parallel (SURVEY.md §7.3 item 6): H hypothesis

@@ -1,6 +1,6 @@
 """Two-view triangulation and epipolar geometry helpers, batched.
 
-TPU-native replacement for the triangulation inside
+JAX replacement for the triangulation inside
 `LocalMapping::CreateNewMapPoints` (reference: src/LocalMapping.cc:343 —
 per-pair SVD of the 4x4 DLT system) and the epipolar checks of
 `ORBmatcher::SearchForTriangulation` (reference: src/ORBmatcher.cc,
@@ -43,8 +43,8 @@ def triangulate_dlt(R1, t1, R2, t2, ray1: jax.Array, ray2: jax.Array) -> jax.Arr
     A = jax.vmap(build_A)(ray1, ray2)  # [N,4,4]
     AtA = jnp.einsum("nij,nik->njk", A, A, precision=_HI)
     # smallest eigenvector by shifted inverse-power iteration with a
-    # closed-form 4x4 inverse: batched tiny eigh lowers very slowly on
-    # TPU, while adjugate-inverse + 3 matvecs is pure elementwise math.
+    # closed-form 4x4 inverse: adjugate-inverse + 3 matvecs is pure
+    # elementwise math, with no batched tiny eigh.
     # The shift is a fraction of the diagonal scale, so (AtA - sI) is
     # well-conditioned for inversion while the smallest eigencomponent
     # still dominates the iteration.

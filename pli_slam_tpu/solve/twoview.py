@@ -1,6 +1,6 @@
 """Monocular two-view reconstruction: batched H/F RANSAC + model selection.
 
-TPU-native replacement for `TwoViewReconstruction` (reference:
+JAX replacement for `TwoViewReconstruction` (reference:
 src/TwoViewReconstruction.cc — `Reconstruct` :39, parallel RANSAC
 threads for `FindHomography` :129 / `FindFundamental` :180, motion
 recovery `ReconstructH/F`) used by monocular initialization

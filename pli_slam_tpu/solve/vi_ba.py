@@ -1,6 +1,6 @@
 """Visual-inertial windowed bundle adjustment (LocalInertialBA).
 
-TPU-native replacement for `Optimizer::LocalInertialBA` (reference:
+JAX replacement for `Optimizer::LocalInertialBA` (reference:
 src/Optimizer.cc:4547 — temporal window of <=10/25 keyframes chained by
 `mPrevKF` EdgeInertial factors + visual edges, solved by g2o). Here the
 per-pose state is 15-dof (T_cw twist ⊕ velocity ⊕ gyro bias ⊕ accel

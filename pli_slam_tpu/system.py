@@ -1,6 +1,6 @@
 """System facade: the top-level API of the framework.
 
-TPU-native replacement for `ORB_SLAM3::System` (reference:
+JAX replacement for `ORB_SLAM3::System` (reference:
 src/System.cc — ctor :41-153, `TrackStereo` :155, `TrackMonocular`,
 `ActivateLocalizationMode` :334, `Reset/ResetActiveMap` :362-377,
 `Shutdown` :379, `SaveTrajectoryTUM/EuRoC/KITTI` :409/:502/:654) and of

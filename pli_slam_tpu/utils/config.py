@@ -8,7 +8,7 @@ Defaults mirror the reference's EuRoC operating point
 (Examples/Stereo-Inertial/Config/EuRoC.yaml).
 
 Static capacity fields (`n_*_max`) set the padded array shapes that the
-whole TPU data model compiles against; changing them recompiles.
+whole fixed-shape data model compiles against; changing them recompiles.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ class LineConfig:
     n_bands: int = 9  # LBD bands
     band_width: int = 7
     lbd_samples: int = 16  # along-line sample count for the LBD grid
-    # Hough-based detector (TPU-native replacement for LSD region growing)
+    # Hough-based detector (JAX replacement for LSD region growing)
     theta_bins: int = 180
     rho_res: float = 2.0
     n_voters: int = 16384  # strongest edge pixels that cast Hough votes
@@ -95,7 +95,8 @@ class OptimizerConfig:
     pose_rounds: int = 4  # GN -> outlier -> GN rounds (Optimizer.cc:1146-1163)
     # inertial per-frame solve rounds: each GN iteration re-linearizes
     # points+lines+IMU sequentially, so the 15-dof solve's latency is
-    # iteration-bound on TPU; 2 rounds (15 iterations) tracks as well as
+    # iteration-bound (not yet measured on the card); 2 rounds (15
+    # iterations) tracks as well as
     # 4 in practice because the IMU prediction is already a near-optimal
     # seed (the reference spends 4x10 g2o iterations, but on CPU where
     # iterations are nearly free)

@@ -1,6 +1,6 @@
 """KITTI-odometry and TUM-RGBD dataset loaders.
 
-TPU-native replacements for the reference's per-dataset CLI plumbing:
+JAX replacements for the reference's per-dataset CLI plumbing:
   - KITTI stereo: Examples/Stereo/stereo_kitti.cc (`LoadImages` reads
     times.txt + image_0/image_1 pairs).
   - TUM RGB-D: Examples/RGB-D/rgbd_tum.cc (`LoadImages` reads an

@@ -1,6 +1,6 @@
 """EuRoC MAV dataset loader: stereo images + IMU + ground truth.
 
-TPU-native replacement for the reference's per-dataset CLI plumbing
+JAX replacement for the reference's per-dataset CLI plumbing
 (reference: Examples/Stereo-Inertial/stereo_inertial_euroc.cc —
 `LoadImages` :124, `LoadIMU` :142, rectification-map setup from the
 YAML in `Tracking::ParseCamParamFile`, src/Tracking.cc:144-258).

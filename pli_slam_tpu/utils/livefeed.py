@@ -1,6 +1,6 @@
 """Live-feed front end: asynchronous sensor ingestion + synchronization.
 
-TPU-native analog of the reference's ROS wrapper
+JAX analog of the reference's ROS wrapper
 (Examples/ROS/PLI_SLAM2/src/ros_stereo_inertial.cc:39-145): an
 `ImuGrabber` and `ImageGrabber` accumulate asynchronously arriving
 sensor messages from any transport (socket, ROS bridge, shared-memory

@@ -1,6 +1,6 @@
 """Leveled logger + per-stage timing CSV.
 
-TPU-native analog of the reference's `Verbose` static logger
+JAX analog of the reference's `Verbose` static logger
 (include/System.h:47-72: QUIET/NORMAL/VERBOSE/VERY_VERBOSE/DEBUG with
 `PrintMess`) and of the SAVE_TIMES per-stage CSV instrumentation
 (src/Tracking.cc:945-952 `f_track_times`).

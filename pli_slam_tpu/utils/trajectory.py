@@ -1,6 +1,6 @@
 """Trajectory writers and error metrics (TUM / EuRoC / KITTI formats).
 
-TPU-native replacement for the reference's trajectory savers
+JAX replacement for the reference's trajectory savers
 (reference: src/System.cc — `SaveTrajectoryTUM` :409,
 `SaveTrajectoryEuRoC` :502, `SaveKeyFrameTrajectoryEuRoC` :602,
 `SaveTrajectoryKITTI` :654) plus the external evo-style ATE/RPE

@@ -3,7 +3,7 @@
 Replacement for the reference's Pangolin GUI stack (reference:
 src/Viewer.cc `Run` :130, src/MapDrawer.cc `DrawMapPoints`/`DrawMapLines`
 :163, src/FrameDrawer.cc overlay :43-483). A live GL window makes no
-sense on a headless TPU host, so this renders the same content —
+sense on a headless accelerator host, so this renders the same content —
 map points, map LINES, keyframe frusta, trajectory, per-frame feature
 overlay — to PNG/HTML artifacts with matplotlib (SURVEY.md Phase 9
 "rerun/web viz rather than Pangolin").

@@ -1,6 +1,6 @@
 """Struct-of-arrays map stores: keyframes, point and line landmarks.
 
-TPU-native replacement for the reference's pointer-graph map data model
+JAX replacement for the reference's pointer-graph map data model
 (reference: src/MapPoint.cc, src/MapLine.cc, src/KeyFrame.cc,
 src/Map.cc, include/Atlas.h). Instead of heap objects with observation
 dictionaries and per-object mutexes, the map is a set of fixed-capacity

@@ -1,6 +1,6 @@
 """Place recognition: LSH bag-of-words scoring, fully on-device.
 
-TPU-native replacement for the DBoW2 vocabulary + KeyFrameDatabase
+JAX replacement for the DBoW2 vocabulary + KeyFrameDatabase
 stack (reference: Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h —
 k-means tree `transform`; src/KeyFrameDatabase.cc —
 `DetectNBestCandidates` :806, `DetectRelocalizationCandidates*`,
@@ -77,7 +77,7 @@ class TrainedVocabulary:
     The reference ships learned ORBvoc/LSDvoc k-means TREES
     (Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h, loaded at
     src/System.cc:84-86); the tree exists to cheapen nearest-centroid
-    lookup on CPU. On the MXU a FLAT argmax-dot over all W centroids is
+    lookup on CPU. On a matrix unit a FLAT argmax-dot over all W centroids is
     one [N,256]x[256,W] int8 matmul (~1.3 GOP at production budgets) —
     no tree needed, identical quantization semantics, plus the same
     TF-IDF weighting DBoW2 applies.

@@ -19,9 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from pli_slam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

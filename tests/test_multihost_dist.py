@@ -5,7 +5,7 @@ virtual 8-device mesh exercises the collective MATH but every device
 lives in one process. Here `jax.distributed` links two OS processes
 (2 virtual CPU devices each) into one 4-device global mesh — the psum in
 `solve_ba_distributed` genuinely crosses a process boundary, which is
-the same code path a 2-host TPU pod uses over DCN.
+the same code path a 2-host deployment uses over its network.
 """
 
 import os
